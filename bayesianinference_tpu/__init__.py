@@ -1,6 +1,6 @@
-"""bayesianinference_tpu — a TPU-native Bayesian inference framework.
+"""bayesianinference_tpu — an accelerator-native Bayesian inference framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of the
+A from-scratch JAX/XLA rebuild of the capability surface of the
 Wolfram Language package ``ssmit1986/BayesianInference`` (see SURVEY.md):
 nested sampling with constrained adaptive-Metropolis MCMC, conjugate
 Bayesian linear regression and Normal/Multinormal conjugate models with
@@ -8,8 +8,8 @@ exact log-evidence, Laplace approximation with MacKay evidence-framework
 hyperparameter optimization, Gaussian-process regression with full
 hyperparameter posteriors, an exponential-family abstraction, MC-dropout
 alpha-divergence Bayesian neural networks, and posterior predictive /
-diagnostic reporting — all designed TPU-first (pytrees, jit/vmap,
-lax.while_loop engines, shard_map parallelism, Pallas kernels).
+diagnostic reporting — all designed accelerator-first (pytrees, jit/vmap,
+lax.while_loop engines, shard_map parallelism).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Weighted-sample container — the TPU-native stand-in for the reference's
+"""Weighted-sample container — the accelerator-native stand-in for the reference's
 ``EmpiricalDistribution``/``WeightedData`` pairs (BayesianUtilities.wl:453-456)
 and the posterior sample associations built by nested sampling
 (BayesianStatistics.wl:1183-1290).

@@ -2,8 +2,8 @@
 
 Equivalents of ``matrixBlockInverse`` / ``inverseMatrixBlockInverse``
 (BayesianUtilities.wl:458-482): extract a block of a matrix inverse
-without forming the full inverse — Cholesky/LU solves only, which XLA maps
-onto the MXU.
+without forming the full inverse — Cholesky/LU solves only, which XLA hands
+to the device's linear-algebra libraries.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Stable log-space numerics.
 
-TPU-native analogue of the reference's compiled numeric utilities
+Accelerator-native analogue of the reference's compiled numeric utilities
 (BayesianInference/Kernel/BayesianUtilities.wl:47, 178-201, 318-356):
 ``$MachineLogZero``, ``logSumExp``, ``logAdd``, ``logSubtract``, ``xLogx``,
 ``xLogy``.  Everything here is jit/vmap-safe, NaN-safe under AD, and follows
-the dtype of its inputs (float32 on TPU by default, float64 on CPU tests).
+the dtype of its inputs (float32 on the device by default, float64 in the CPU tests).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Data standardization with invertible transforms.
 
-TPU-native equivalent of the reference's ``normalizeData`` /
+Accelerator-native equivalent of the reference's ``normalizeData`` /
 ``FeatureExtraction[..., "StandardizedVector"]`` machinery
 (BayesianUtilities.wl:232-286): center/scale the inputs and outputs of a
 regression problem and keep the forward + inverse transforms attached to the

@@ -58,7 +58,7 @@ def box_bijection(lower, upper) -> BoxBijection:
     # dtype-aware interior nudge: the clip bound must survive the
     # arithmetic in this dtype (a 1e-9 nudge is invisible in f32:
     # 1.0 - 1e-9 rounds back to 1.0, so boundary x mapped to z = +-inf
-    # and log_jacobian = -inf on TPU)
+    # and log_jacobian = -inf in f32)
     eps = jnp.maximum(jnp.asarray(jnp.finfo(dtype).eps, dtype), 1e-9)
 
     def _sp_inv(y):

@@ -4,7 +4,7 @@ The reference delegates all distribution math to Wolfram built-ins
 (``PDF``, ``LogLikelihood``, ``RandomVariate``, ``TruncatedDistribution`` ...,
 used throughout e.g. BayesianStatistics.wl:277, 1060, 1209-1224,
 BayesianConjugatePriors.wl:42-51).  This module is the from-scratch
-TPU-native replacement: distributions are frozen pytree dataclasses whose
+accelerator-native replacement: distributions are frozen pytree dataclasses whose
 parameters are traced arrays, so they jit, vmap, grad and shard like any
 other JAX value.
 

@@ -1,6 +1,6 @@
 """Distribution combinators.
 
-TPU-native equivalents of the reference's distribution constructors:
+Accelerator-native equivalents of the reference's distribution constructors:
 ``ProductDistribution`` (BayesianStatistics.wl:60-64), ``TruncatedDistribution``
 (BS:52-59), ``MixtureDistribution`` (BS:1431-1434, BayesianUtilities.wl:69-88),
 ``conditionalProductDistribution`` (BU:496-629) and

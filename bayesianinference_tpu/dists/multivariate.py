@@ -6,8 +6,8 @@ MultivariateTDistribution, MatrixNormalDistribution, MatrixTDistribution,
 WishartMatrixDistribution / InverseWishartMatrixDistribution
 (BayesianLinearRegression.wl:202-249, BayesianConjugatePriors.wl:153-295).
 
-All use Cholesky factorizations + triangular solves (TPU-friendly: batched
-``lax.linalg`` ops that XLA maps onto the MXU), never explicit inverses.
+All use Cholesky factorizations + triangular solves (accelerator-friendly: batched
+``lax.linalg`` ops that XLA maps onto dense matmuls), never explicit inverses.
 """
 
 from __future__ import annotations
@@ -49,10 +49,8 @@ def mvgammaln(a, d: int):
 
 
 def _chol_logdet(L):
-    """log|A| from L = chol(A).  Precise logs: this normalization term is
-    the coherent-error amplifier on TPU (one ~300-ulp native log per
-    diagonal entry lands directly in the density value; see
-    core.precise)."""
+    """log|A| from L = chol(A).  Precise logs (``core.precise``): each
+    diagonal entry's log error lands directly in the density value."""
     return 2.0 * jnp.sum(
         log_precise(jnp.diagonal(L, axis1=-2, axis2=-1)), axis=-1
     )
@@ -63,7 +61,7 @@ def _solve_tri(L, b, trans=0):
     rhs b [..., d, k].
 
     For an unbatched L, batch dims of b are folded into the column axis so
-    XLA issues ONE large solve (better MXU utilization than a vmapped loop);
+    XLA issues ONE large solve (better matmul utilization than a vmapped loop);
     for batched L both operands are broadcast to a common batch."""
     L = jnp.asarray(L)
     b = jnp.asarray(b)
@@ -301,8 +299,8 @@ class MatrixT(Distribution):
             "...ik,...jk->...ij", z, z, precision=jax.lax.Precision.HIGHEST
         )
         # S = I + Z Z^T is PD by construction: Cholesky logdet with
-        # precise logs (slogdet's LU path keeps TPU's ~300-ulp native
-        # log); a failed factorization propagates NaN into the guard
+        # precise logs (slogdet's LU path would use the native log); a
+        # failed factorization propagates NaN into the guard
         logdet_s = _chol_logdet(_cholesky(s))
         alpha = 0.5 * (v + n + p - 1.0)
         beta = 0.5 * (v + p - 1.0)

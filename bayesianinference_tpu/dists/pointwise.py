@@ -4,7 +4,7 @@ The reference's posterior predictives are *lists* of
 ``MixtureDistribution`` objects, one per input point
 (``predictiveDistribution``, BayesianStatistics.wl:1437-1483;
 ``predictFromGaussianProcess``, BayesianGaussianProcess.wl:343-376).  On
-TPU we keep the whole batch as one object: S mixture components x m query
+the device we keep the whole batch as one object: S mixture components x m query
 points, everything vectorized over the point axis.
 """
 

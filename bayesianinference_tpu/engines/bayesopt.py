@@ -6,7 +6,7 @@ reference package stops at GP *regression* (GP:201-330); this engine is
 the natural consumer the reference leaves to the user: fit a surrogate,
 maximize an acquisition, evaluate, repeat.
 
-TPU-first design — the whole loop is ONE compiled program:
+Accelerator-first design — the whole loop is ONE compiled program:
 
 - **Capacity-padded masked GP.**  The training set grows by one point
   per step, which would retrace any shape-carrying program.  Instead the
@@ -23,7 +23,7 @@ TPU-first design — the whole loop is ONE compiled program:
   step" loop free of host round-trips.
 - **Batched acquisition maximization.**  The acquisition is evaluated on
   a large random candidate batch in one ``[capacity, Q]`` cross-covariance
-  matmul (MXU-shaped), then the best candidate is refined with a few
+  matmul (matmul-shaped), then the best candidate is refined with a few
   projected gradient-ascent steps.  No per-candidate Python.
 
 Acquisitions: ``"log_ei"`` (numerically stable log expected improvement),

@@ -19,7 +19,7 @@ fit g, the other half enter the optimal-bridge fixed point
 
 iterated in log space with a median shift for overflow safety.
 
-TPU-first shape: the whole estimator — proposal moments, both density
+Accelerator-first shape: the whole estimator — proposal moments, both density
 sweeps (vmapped batched evals, the same kernel as everywhere else), and
 the scalar fixed point (``lax.while_loop``) — is ONE jitted program
 taking the problem and draws as pytree arguments, so refits on fresh

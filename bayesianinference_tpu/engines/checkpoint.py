@@ -110,11 +110,6 @@ def resume_nested_sampling_loop(
         mc_steps = (monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps)
     else:
         mc_steps = tuple(monte_carlo_steps)
-    from .nested_sampling import _sanitize_callbacks
-
-    progress_callback, interrupt_check = _sanitize_callbacks(
-        progress_callback, progress_interval, interrupt_check
-    )
     cfg = _LoopConfig(
         max_iterations=new_max,
         min_iterations=min_iterations,

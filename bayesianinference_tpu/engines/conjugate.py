@@ -5,8 +5,8 @@ exact log evidence.
 From-scratch XLA implementations of ``BayesianLinearRegression``
 (BayesianLinearRegression.wl:17-366) and ``conjugatePriorModel``
 (BayesianConjugatePriors.wl:67-295).  Pure dense linear algebra — design
-matrices, Gram updates, Cholesky solves — which XLA maps straight onto the
-MXU; no iteration anywhere.
+matrices, Gram updates, Cholesky solves — which XLA maps straight onto dense
+matmuls; no iteration anywhere.
 """
 
 from __future__ import annotations
@@ -149,8 +149,8 @@ def _update_parameters(
     ymat = y[:, None] if univariate else y
     b0 = prior.b[:, None] if univariate else prior.b
     n = ymat.shape[0]
-    # data-length matmuls at HIGHEST precision: TPU's default bf16 loses
-    # ~1e-2 relative on X^T X / X^T Y, which the "exact" candidate-point
+    # data-length matmuls at HIGHEST precision: a reduced-precision
+    # default (bf16/TF32) loses ~1e-3-1e-2 relative on X^T X / X^T Y, which the "exact" candidate-point
     # log evidence amplifies; these products are O(n k^2) — negligible
     hp = jax.lax.Precision.HIGHEST
     gram = jnp.matmul(dmat.T, dmat, precision=hp)

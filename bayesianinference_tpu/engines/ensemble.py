@@ -2,12 +2,12 @@
 
 Beyond-reference engine (the reference's samplers are single-chain
 adaptive Metropolis, BayesianStatistics.wl:655-745); see
-:mod:`..ops.ensemble` for the move kernels and the TPU design notes.
+:mod:`..ops.ensemble` for the move kernels and the design notes.
 The niche between the framework's other samplers: gradient-free like
 the AM/slice kernels but with NOTHING to tune (no step size, proposal
 covariance, or trajectory length) and exact invariance under affine
 reparameterization — badly scaled or strongly correlated posteriors
-cost no extra mixing time.  Walkers are the TPU batch axis, so the
+cost no extra mixing time.  Walkers are the device batch axis, so the
 recommended regime is hundreds to thousands of walkers.
 
 Box-bounded problems are sampled in unconstrained coordinates through
@@ -219,7 +219,7 @@ def ensemble_sample(
     of a gamma=1 mode-jump proposal, default 0.1).  Setting the knob
     that belongs to the other move raises.  ``num_walkers`` must be
     even and at least 2d+2 (stretch moves span only the walker
-    subspace); prefer hundreds — extra walkers are free on TPU and
+    subspace); prefer hundreds — extra walkers are nearly free on an accelerator and
     shorten the effective burn-in.  Each recorded draw is one full
     ensemble sweep (thinned by ``thinning``)."""
     if move not in ("stretch", "de"):

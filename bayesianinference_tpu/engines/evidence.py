@@ -11,7 +11,7 @@ trajectory yields trapezoid weights, a logZ draw, and a posterior-weight
 vector; means/standard deviations across trajectories give the reported
 uncertainties (``meanAndError``, BS:1138-1156).
 
-Everything is one batched computation over the run axis — the TPU analogue
+Everything is one batched computation over the run axis — the batched analogue
 of the reference's vectorized matrix simulation (BS:1200-1235).
 """
 

@@ -23,9 +23,9 @@ exactly:
   posterior and the estimate is trustworthy (same contract as
   Pathfinder's pooled weights).
 
-TPU-first design: one jitted ``lax.scan`` over optimizer steps; each
+Accelerator-first design: one jitted ``lax.scan`` over optimizer steps; each
 step pushes a BATCH of base draws through the flow — the coupling
-conditioners are [batch, d] @ [d, hidden] matmuls (MXU work) and the
+conditioners are [batch, d] @ [d, hidden] matmuls (matmul work) and the
 density evaluations reuse the library-wide vmapped-density kernel.
 Everything (flow apply, inverse, ELBO, PSIS) is shape-static; the
 problem rides as a pytree argument so refits on fresh same-shape data

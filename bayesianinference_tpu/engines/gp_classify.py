@@ -402,7 +402,7 @@ def sample_gp_latents(
     type-II ML optimum or one posterior draw).  Chains start at the
     Laplace mode and decorrelate during ``burn_in``; the whole program
     is one jitted scan, so thousands of chains cost little more than
-    one (the per-update matvec batches onto the MXU)."""
+    one (the per-update matvec batches as matmuls)."""
     from ..ops.ess import ess_sample
     from ..ops.gp_laplace import gp_laplace_mode
 

@@ -16,7 +16,7 @@ current posterior — the general-model analogue of
   the principled streaming model-comparison quantity;
 * the final weighted particles feed every posterior consumer.
 
-TPU-first design: the number of stages (ceil(n_obs / batch)) is static,
+Accelerator-first design: the number of stages (ceil(n_obs / batch)) is static,
 so the whole run is ONE jitted ``lax.fori_loop`` over fixed-shape
 buffers; the stage density evaluates the FULL pointwise log-likelihood
 matrix against a 0/1 prefix mask (static shapes, no growing arrays);

@@ -9,7 +9,7 @@ Holenstein 2010): carrying the ESTIMATE of the current point in the
 chain state makes the chain target the EXACT posterior despite the
 noise.
 
-TPU-first design: ``num_chains`` chains run as ONE vmapped batch — at
+Accelerator-first design: ``num_chains`` chains run as ONE vmapped batch — at
 every MH step all chains' particle filters advance together as a
 [C, P, ds] tensor program inside one ``lax.scan``; proposal scales
 adapt per chain toward 0.234 acceptance during warmup (Robbins-Monro

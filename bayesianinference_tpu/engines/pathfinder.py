@@ -12,7 +12,7 @@ typically BEFORE convergence, where the Gaussian covers posterior mass
 instead of curvature); unlike ADVI it costs one deterministic optimizer
 run per path instead of thousands of stochastic gradient steps.
 
-TPU-first design:
+Accelerator-first design:
 
 * ``num_paths`` L-BFGS trajectories run as ONE jitted program, vmapped
   over paths — every stage (line searches, history updates, per-iterate

@@ -16,7 +16,7 @@ effective sample size of the incremental weights hits a target fraction
 the particle population with the block adaptive-Metropolis kernel from
 :mod:`..ops.metropolis` targeting the new tempered density.
 
-TPU-first design (same playbook as the NS engine):
+Accelerator-first design (same playbook as the NS engine):
 
 * the whole ladder is ONE ``lax.while_loop`` over fixed-shape [n, d]
   particle buffers — every likelihood evaluation is batched across the
@@ -26,8 +26,8 @@ TPU-first design (same playbook as the NS engine):
 * independent replicate runs (for logZ error bars) advance in lockstep
   inside the one jitted program, with their rejuvenation chains FLATTENED
   into a single [R*n] batch — vmapping the while_loop instead hands the
-  chain scan rank-4 operands, which XLA lowers ~20x slower on TPU
-  (measured; see ``_smc_ladders``);
+  chain scan rank-4 operands, which XLA lowered ~20x slower on the
+  previous accelerator (see ``_smc_ladders``);
 * the program is jit-cached per (problem-structure, static config), with
   the problem as a pytree argument — fresh same-shape datasets hit the
   compile cache (the serving convention, ``InferenceProblem.with_data``).
@@ -221,9 +221,9 @@ def _smc_ladders(problem: InferenceProblem, particles, keys, cfg: SMCConfig):
 
     Why flat and not ``vmap(one_ladder)``: vmapping a while_loop whose
     body contains the chain ``lax.scan`` gives the scan RANK-4 stacked
-    operands ([steps, R, n, d]) — measured on TPU this lowers ~20x
-    slower than the identical computation outside the loop (2.9 s vs
-    0.15 s at R=2, n=32k, 100 steps), while the flat rank-3 form
+    operands ([steps, R, n, d]) — on the previous accelerator this
+    lowered ~20x slower than the identical computation outside the
+    loop (not yet re-checked on the GPU), while the flat rank-3 form
     ([steps, R*n, d] — the shape the NS engine's proven-fast loop uses)
     is flat in R.  Per-run quantities (beta, mean, covariance factor)
     are repeated across each run's chain block."""

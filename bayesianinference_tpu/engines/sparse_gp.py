@@ -5,10 +5,10 @@ shape as ``defineGaussianProcess`` (GP:201-330) and the same posterior
 machinery (any engine over the hyperparameters, then
 ``predict_from_gaussian_process``), but the likelihood is the collapsed
 Titsias bound (:mod:`..ops.sgpr`) instead of the dense Cholesky logML,
-lifting the single-chip ceiling from n = 16k (measured, PERFORMANCE.md)
-to n limited only by O(n m) memory.  With ``mesh=`` the data axis
+lifting the dense path's O(n^2) memory ceiling to n limited only by
+O(n m) memory.  With ``mesh=`` the data axis
 shards across devices: each shard computes its [m, n_local] whitened
-statistics locally and ONE psum of ([m, m], [m], scalars) rides the ICI
+statistics locally and ONE psum of ([m, m], [m], scalars) crosses the interconnect
 per likelihood evaluation.
 """
 
@@ -212,9 +212,8 @@ def optimize_sparse_gp(
     free [m, q] array.  ``include_prior=True`` adds the problem's log
     prior (MAP-II instead of ML-II).
 
-    Every Adam step is O(n m^2) MXU matmuls — at n = 262k, m = 512 one
-    step is the same program as one bound+grad evaluation
-    (PERFORMANCE.md "SGPR scaling")."""
+    Every Adam step is O(n m^2) matmuls — at n = 262k, m = 512 one
+    step is the same program as one bound+grad evaluation."""
     from ..core.transforms import box_bijection
 
     model: Optional[SGPRModel] = (problem.metadata or {}).get(

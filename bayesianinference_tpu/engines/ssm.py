@@ -266,8 +266,8 @@ def sample_state_paths(
     ``theta``: [d] (one vector — conditional paths only) or [S, d]
     (posterior draws).  Returns [S, paths_per_theta, T, state_dim]
     (S=1 for a single vector).  The whole batch is one vmapped jitted
-    tensor program — S x paths_per_theta smoother passes batch on the
-    MXU, no Python loop."""
+    tensor program — S x paths_per_theta smoother passes batch as
+    matmuls, no Python loop."""
     meta = _ssm_meta(problem)
     theta = jnp.atleast_2d(jnp.asarray(theta))
 

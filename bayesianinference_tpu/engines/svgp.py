@@ -7,7 +7,7 @@ latent likelihood — classification and count regression at n far past
 the O(n^3) Laplace/EP bridge of :mod:`.gp_classify`, which remain the
 exact-n references these fits are tested against.
 
-One Adam step = one [M, M] Cholesky + [M, B] MXU matmuls (B = batch)
+One Adam step = one [M, M] Cholesky + [M, B] matmuls (B = batch)
 inside ONE jitted ``lax.scan`` over all steps; with ``minibatch=B`` the
 expected log-likelihood is an unbiased n/B-scaled subsample estimate
 (uniform with-replacement indices drawn inside the scan), so HBM holds
@@ -114,7 +114,7 @@ def fit_svgp(
     ``mesh``: a ``jax.sharding.Mesh`` to shard the DATA axis over
     ``axis_name`` — each device computes the expected log-likelihood of
     its n/P points (one [M, M] Cholesky replicated + [M, n/P] local
-    matmuls) and ONE scalar psum per step rides the ICI; the KL runs
+    matmuls) and ONE scalar psum per step crosses the interconnect; the KL runs
     replicated.  Mutually exclusive with ``minibatch`` (each device's
     shard already is the batch)."""
     from ..core.transforms import box_bijection

@@ -10,7 +10,7 @@ curvature at the mode); unlike NS/MCMC it costs only an optimizer run
 and yields the ELBO, a lower bound on log-evidence that complements the
 NS estimate and the Laplace approximation.
 
-TPU-first design:
+Accelerator-first design:
 
 * one jitted ``lax.scan`` over optimizer steps; each step evaluates the
   ELBO on a BATCH of reparameterized draws (vmapped density+gradient),

@@ -20,7 +20,7 @@ exact whenever z is conditionally Gaussian given theta (linear-Gaussian
 latents, random effects with Gaussian likelihoods), and the standard
 approximation for log-concave latent likelihoods.
 
-TPU-first mechanics:
+Accelerator-first mechanics:
 
 * The inner Newton ascent runs as a TAPE-FREE ``lax.while_loop`` on a
   ``stop_gradient`` copy of theta (reverse-mode cannot cross a
@@ -35,7 +35,7 @@ TPU-first mechanics:
   ``jax.hessian`` over theta to IFT accuracy.
 * Everything is ``vmap``-able: the while_loop batches across a chain/
   particle axis (it runs until the whole batch converges), and the
-  per-step work is one [m, m] Cholesky + solves — MXU-shaped for the
+  per-step work is one [m, m] Cholesky + solves — matmul-shaped for the
   m <= few-hundred latents this dense path targets.  (For GP-sized
   latent fields use the structured :mod:`..ops.gp_laplace` instead.)
 

@@ -1,4 +1,4 @@
-"""Inference-problem definition — the TPU-native ``defineInferenceProblem``.
+"""Inference-problem definition — the accelerator-native ``defineInferenceProblem``.
 
 The reference's central object is ``inferenceObject[assoc]`` holding the
 problem spec plus compiled log-likelihood / log-prior functions

@@ -9,10 +9,10 @@ exact marginal likelihood p(y_{1:T} | h, UPM hyperparameters), so the
 hazard and segment hyperparameters plug into every engine
 (NS/HMC/Laplace) through ``engines.changepoint``.
 
-TPU-first construction: the run-length distribution lives in a FIXED
+Accelerator-first construction: the run-length distribution lives in a FIXED
 capacity buffer of ``r_max`` slots; one ``lax.scan`` over time where
 each step is [r_max]-vector work (the UPM sufficient statistics update
-vectorizes over run lengths — pure VPU ops, batching under vmap over
+vectorizes over run lengths — pure elementwise ops, batching under vmap over
 hyperparameter chains).  Probability mass at run lengths >= r_max is
 absorbed into the last slot (adopting its sufficient statistics: runs
 are capped at r_max - 1 points of memory), so normalization and the

@@ -1,10 +1,10 @@
 """ChEES-HMC: gradient-based trajectory-length adaptation.
 
 The one hand-tuned knob left in the HMC kernel (:mod:`.hmc`) is
-``num_leapfrog``.  NUTS removes it but is hostile to batched TPU
+``num_leapfrog``.  NUTS removes it but is hostile to batched accelerator
 execution (data-dependent per-chain tree depth forces worst-case masked
 work in lockstep — see the design note at the top of :mod:`.hmc`).  The
-TPU-native answer is ChEES (Hoffman, Radul & Sountsov, AISTATS 2021):
+accelerator-native answer is ChEES (Hoffman, Radul & Sountsov, AISTATS 2021):
 adapt ONE shared trajectory length T by stochastic gradient ascent on
 the Change-in-the-Estimator-of-the-Expected-Square criterion
 
@@ -16,7 +16,7 @@ end velocity, t the realized trajectory time; the factor t is dt/dlogT
 for log-space ascent).  Acceptance-probability weighting discards
 divergent endpoints.
 
-TPU-first design:
+Accelerator-first design:
 
 * Every iteration draws ONE jitter fraction h_i (van der Corput /
   Halton base-2 — low-discrepancy, so short and long trajectories

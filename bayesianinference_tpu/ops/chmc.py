@@ -12,7 +12,7 @@ differentiable likelihoods at high d; the gradient costs ~2x a plain
 density eval, so below the measured crossover the slice kernel stays
 the default.
 
-TPU-first construction:
+Accelerator-first construction:
 
 * the live-covariance estimate ``Sigma = L L^T`` (the same one the AM
   kernel adapts) preconditions the dynamics as a mass matrix.  Momenta

@@ -15,11 +15,11 @@ covariance adaptation, nothing to tune.  Two classic moves:
   Metropolis accept; occasionally gamma = 1 proposals let walkers jump
   between well-separated modes.
 
-TPU-first design: the ensemble is split into two fixed halves updated
+Accelerator-first design: the ensemble is split into two fixed halves updated
 alternately (red/black).  Each half-update is ONE fully batched program
 — a [W/2] partner gather, a [W/2, d] fused proposal, one vmapped
-density evaluation — so the whole sweep is a handful of large VPU ops
-regardless of W.  Walkers are the TPU batch axis exactly like the NS
+density evaluation — so the whole sweep is a handful of large elementwise ops
+regardless of W.  Walkers are the device batch axis exactly like the NS
 chain pool: thousands of walkers cost the same wall time as dozens.
 Degenerate-density proposals (NaN from a pathological region) count as
 rejections via the guarded comparison, never poisoning the carry.

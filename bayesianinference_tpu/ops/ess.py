@@ -14,13 +14,13 @@ sampler at all (its GP stack is Gaussian-likelihood-only,
 BayesianGaussianProcess.wl:161-199), so this is a beyond-reference
 capability in the same spirit as the HMC/SMC engines.
 
-TPU shape: one update is a single [n, n] @ [n] matvec (the prior draw
+Device shape: one update is a single [n, n] @ [n] matvec (the prior draw
 ``nu = L z``) plus a bounded shrinkage ``lax.while_loop`` of O(n)
-rotations ``f cos(t) + nu sin(t)`` — MXU work up front, VPU work in the
+rotations ``f cos(t) + nu sin(t)`` — matmul work up front, elementwise work in the
 loop, no Cholesky per step (the prior factor is computed once per
 chain run and closed over).  Everything vmaps over a chain axis, so the
 natural deployment is tens-of-thousands of chains exactly like the NS
-pool (PERFORMANCE.md "HMC chain-count scaling").
+pool.
 
 The ESS proposal always contains the current point (theta -> 0), so the
 shrinkage loop terminates with probability 1; ``max_shrink`` only
@@ -182,7 +182,7 @@ def ess_sample(
 
     Returns ``(draws [num_samples, n], final EllipticalState)``.  vmap
     over (key, f0) for a chain batch — each chain closes over the same
-    prior factor so the matvecs batch onto the MXU."""
+    prior factor so the matvecs batch as matmuls."""
     k_burn, k_coll = jax.random.split(key)
     state = run_ess_chain(
         k_burn, f0, log_lik_fn, chol_k, burn_in,

@@ -8,17 +8,17 @@ Williams 2006 sec. 3.6) is markedly more accurate than Laplace for
 classification — near-exact for probit — at the cost of an iterative
 site refinement.
 
-TPU-first design — PARALLEL (all-sites-at-once) damped EP, not the
+Accelerator-first design — PARALLEL (all-sites-at-once) damped EP, not the
 textbook sequential sweep:
 
 * The classic EP loop updates one site at a time with a rank-one
   posterior downdate — n sequential [n]-vector steps per sweep, a shape
-  TPUs hate.  Here every sweep recomputes the full posterior from the
+  accelerators run poorly.  Here every sweep recomputes the full posterior from the
   current sites with ONE [n, n] Cholesky (B = I + S^1/2 K S^1/2) + two
   triangular solves, then moment-matches ALL cavities simultaneously
   (vectorized Gauss-Hermite), then applies one damped site update.
   Damped parallel EP converges to the same fixed point (van Gerven et
-  al. 2009); each sweep is matmul-shaped MXU work.
+  al. 2009); each sweep is matmul-shaped matmul work.
 * Site moment matching is GENERIC: log Z_i(mu, s) = log E[p(y_i|f)]
   under the cavity is evaluated by Gauss-Hermite quadrature of the
   likelihood's scalar ``log_prob``, and its first/second mu-derivatives

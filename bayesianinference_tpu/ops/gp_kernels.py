@@ -1,9 +1,8 @@
 """Gaussian-process covariance kernels and log-marginal-likelihood ops.
 
-TPU-native re-design of the reference's GP numerics
+Accelerator re-design of the reference's GP numerics
 (BayesianGaussianProcess.wl): ``covarianceMatrix`` (GP:27-43) becomes a
-matmul-based pairwise assembly that XLA tiles onto the MXU (with an optional
-fused Pallas kernel for the squared-exponential hot path),
+matmul-based pairwise assembly that XLA fuses,
 ``matrixInverseAndDet`` (GP:130-159) becomes Cholesky + triangular solves,
 and ``gaussianProcessLogLikelihood`` (GP:161-199) is a fused clipped logML
 with well-defined gradients for hyperparameter inference.
@@ -15,12 +14,10 @@ from hyperparameters, exposing ``matrix(x1, x2)`` and ``diag(x)``.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 from jax.scipy.linalg import cho_solve, solve_triangular
 
 from ..core.numerics import LOG2PI, log_zero
@@ -41,8 +38,6 @@ __all__ = [
     "covariance_matrix",
     "gp_log_marginal_likelihood",
     "gp_posterior_moments",
-    "se_covariance_pallas",
-    "cholesky_pallas",
 ]
 
 
@@ -53,34 +48,32 @@ def _f(x):
 
 # Largest [n1, n2, d] difference temp (elements) for which
 # squared_distances takes the accurate direct-difference form; above it,
-# the MXU matmul identity.  Module-level so tests can exercise both
+# the matmul identity.  Module-level so tests can exercise both
 # branches at small shapes.
 _DIRECT_SQDIST_MAX_ELEMS = 1 << 24
 
 
 def squared_distances(x1, x2):
     """Pairwise squared Euclidean distances via the matmul identity
-    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b  — one MXU matmul instead of an
+    |a-b|^2 = |a|^2 + |b|^2 - 2 a.b  — one matmul instead of an
     O(n^2 d) gather loop (the reference assembles entry-by-entry via
     SymmetrizedArray, GP:31-43).
 
-    The Gram matmul runs at ``Precision.HIGHEST``: TPU's default bf16
-    matmul loses ~1e-2 relative on the cross terms, enough to push the
-    assembled covariance NON-positive-definite past small nuggets
-    (measured: min eig -8e-4 at n=256, nugget 0.05 -> Cholesky NaN ->
-    sentinel logML).  The sqdist matmul is O(n^2 d) against the
+    The Gram matmul runs at ``Precision.HIGHEST``: a reduced-precision
+    default (bf16/TF32) loses ~1e-3-1e-2 relative on the cross terms,
+    enough to push the assembled covariance NON-positive-definite past
+    small nuggets (Cholesky NaN -> sentinel logML).  The sqdist matmul is O(n^2 d) against the
     factorization's O(n^3), so full precision here is free.
 
     Small problems take the direct-difference form sum((a-b)^2) instead:
     the matmul identity cancels catastrophically when |a.b| >> |a-b|^2,
-    inflating f32 entry error ~22x over exact rounding (1.3e-6 vs 6e-8
-    max abs at the PRECISION gp config) and roughly DOUBLING the final
-    f32 logML error (2.5e-6 -> 1.4e-6 measured,
-    scratch/probe_gp_f32_floor.py).  The [n1, n2, d] difference temp
+    inflating f32 entry error well past exact rounding and with it the
+    final f32 logML error (``benchmarks/probe_gp_f32_floor.py``
+    compares the forms).  The [n1, n2, d] difference temp
     makes it O(n^2 d) memory, so it is gated to shapes whose temp fits
-    comfortably in HBM slack (<= 2^24 elements, 64 MB f32 — n=2048 at
-    d=4); above that the matmul form's error is dominated by the f32
-    factorization anyway (PERFORMANCE.md "f32 GP logML floor")."""
+    comfortably in device-memory slack (<= 2^24 elements, 64 MB f32 —
+    n=2048 at d=4); above that the matmul form's error is dominated by
+    the f32 factorization anyway."""
     x1, x2 = _f(x1), _f(x2)
     n1_, d = x1.shape[-2], x1.shape[-1]
     n2_ = x2.shape[-2]
@@ -189,8 +182,8 @@ def rational_quadratic_kernel(variance=1.0, lengthscale=1.0, alpha=1.0) -> Kerne
     a = _f(alpha)
 
     def f(sq):
-        # x^-a = exp(-a log x) with precise transcendentals (native pow
-        # inherits TPU's ~300-ulp log, squarely in the kernel entries)
+        # x^-a = exp(-a log x) through the precise-transcendental
+        # wrappers (core.precise), whose log lands in the kernel entries
         return exp_neg_precise(-a * log_precise(1.0 + sq / (2.0 * a)))
 
     return _stationary(f, variance, lengthscale)
@@ -260,7 +253,7 @@ def covariance_matrix(
     ``nugget``: scalar, [n] vector, or callable x -> [n].
 
     ``symmetrize=False`` skips the explicit 0.5 (K + K^T) pass — an extra
-    full read+write of K (11 ms of HBM traffic at n=16k).  Safe whenever
+    full read+write of K (2 GB of memory traffic at n=16k in f32).  Safe whenever
     the consumer only reads one triangle (Cholesky-based logML/solves) or
     the kernel is exactly symmetric by construction (all built-in kernels:
     their Gram/distance forms give max |K - K^T| = 0 in f32)."""
@@ -307,10 +300,9 @@ def _tri_inv_lower(L, base: int = 256):
 
     Triangular solves appear only at the ``base``-sized diagonal blocks —
     ALL of which invert in one batched (vmapped) solve — and the combine
-    step runs level-by-level as batched matmuls, which is what the MXU
-    wants: XLA's own triangular solve runs its substitution serially and
-    leaves the MXU idle (the 8x forward/backward gap of PERFORMANCE.md
-    round 1 lived here).  Static shapes; log2(n/base) levels."""
+    step runs level-by-level as batched matmuls: a wide-RHS triangular
+    solve runs its substitution serially and materializes large
+    temporaries.  Static shapes; log2(n/base) levels."""
     n = L.shape[-1]
     nb = n // base if n % base == 0 else 0
     if L.ndim != 2 or nb <= 1 or (nb & (nb - 1)) != 0:
@@ -426,190 +418,3 @@ def gp_posterior_moments(
     v = solve_triangular(L, k_cross, lower=True)  # [n, m]
     var_star = kappa - jnp.sum(v * v, axis=0)
     return mean_star, jnp.sqrt(jnp.maximum(var_star, 0.0))
-
-
-# ---------------------------------------------------------------------------
-# Pallas fused SE covariance assembly (TPU hot path)
-# ---------------------------------------------------------------------------
-
-
-def _se_cov_kernel(scal_ref, x1_ref, x2_ref, out_ref):
-    """One [bm, bn] tile of  var * exp(-|a-b|^2/(2 l^2)):
-    the Gram tile runs on the MXU; norms, exp and scaling stay in VMEM
-    (fused epilogue — the HBM-bandwidth win over materializing sqdist).
-    ``scal_ref`` holds [inv2l2, var] in SMEM."""
-    inv2l2 = scal_ref[0, 0]
-    var = scal_ref[0, 1]
-    x1 = x1_ref[...]
-    x2 = x2_ref[...]
-    g = jnp.dot(x1, x2.T, preferred_element_type=jnp.float32)
-    n1sq = jnp.sum(x1 * x1, axis=1, keepdims=True)  # [bm, 1]
-    n2sq = jnp.sum(x2 * x2, axis=1, keepdims=True)  # [bn, 1]
-    sq = n1sq + n2sq.T - 2.0 * g
-    sq = jnp.maximum(sq, 0.0)
-    out_ref[...] = (var * jnp.exp(-sq * inv2l2)).astype(out_ref.dtype)
-
-
-@partial(jax.jit, static_argnames=("block", "interpret"))
-def se_covariance_pallas(
-    x, variance, lengthscale, nugget=0.0, block: int = 256, interpret: bool = False
-):
-    """Fused squared-exponential covariance assembly K [n, n] as a Pallas
-    TPU kernel (tiling: [block, block] output tiles; inputs padded to the
-    block size).  ``interpret=True`` runs the kernel in the Pallas
-    interpreter (for CPU correctness tests).
-
-    Dispatches fine on the dev chip as of round 2 (matches the XLA
-    assembly to 4e-6 and its wall time at n=4k); the XLA path stays the
-    default since its fusion already saturates this op.
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
-    x = jnp.asarray(x, jnp.float32)
-    n, d = x.shape
-    n_pad = ((n + block - 1) // block) * block
-    d_pad = ((d + 127) // 128) * 128
-    xp = jnp.zeros((n_pad, d_pad), jnp.float32).at[:n, :d].set(x)
-
-    inv2l2 = jnp.float32(0.5) / jnp.asarray(lengthscale, jnp.float32) ** 2
-    var = jnp.asarray(variance, jnp.float32)
-    scal = jnp.stack([inv2l2, var]).reshape(1, 2)
-
-    grid = (n_pad // block, n_pad // block)
-    out = pl.pallas_call(
-        _se_cov_kernel,
-        out_shape=jax.ShapeDtypeStruct((n_pad, n_pad), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 2), lambda i, j: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((block, d_pad), lambda i, j: (i, 0)),
-            pl.BlockSpec((block, d_pad), lambda i, j: (j, 0)),
-        ],
-        out_specs=pl.BlockSpec((block, block), lambda i, j: (i, j)),
-        interpret=interpret,
-    )(scal, xp, xp)
-    k = out[:n, :n]
-    return k + jnp.asarray(nugget, k.dtype) * jnp.eye(n, dtype=k.dtype)
-
-
-# ---------------------------------------------------------------------------
-# Pallas VMEM-resident blocked SPD Cholesky (the SURVEY §7.4 tiled kernel)
-# ---------------------------------------------------------------------------
-
-
-def _chol_pallas_kernel(a_ref, out_ref, *, n, block):
-    """Right-looking blocked Cholesky, whole matrix resident in VMEM.
-
-    Per panel p (width ``block``, a multiple of 128 so lane-dim dynamic
-    slices stay aligned):
-      1. masked one-hot column loop factorizes the [b, b] diagonal block
-         and builds inv(L_jj) by forward substitution (VPU, b steps);
-      2. the full [n, b] panel of L comes from ONE MXU matmul
-         pan @ inv(L_jj)^T (band rows reproduce L_jj exactly);
-      3. the trailing update runs as ONE full-width [n, b] x [b, n] MXU
-         matmul with the second factor masked to rows >= c0 + b, so
-         finished and in-flight columns are untouched (the same masking
-         argument as the distributed factorization in
-         parallel/sharded_chol.py).
-    """
-    dtype = out_ref.dtype
-    b = block
-    # Everything stays 2-D ([b,1] / [1,b]) with keepdims reductions and
-    # broadcast outer products: Mosaic (this jax version) rejects 1-D
-    # dot_general operands and 1-D reduction outputs.
-    riota = jax.lax.broadcasted_iota(jnp.int32, (b, 1), 0)  # [b, 1]
-    ciota = jax.lax.broadcasted_iota(jnp.int32, (1, b), 1)  # [1, b]
-    rows_n = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)  # [n, 1]
-    zero = jnp.zeros((), dtype)
-
-    out_ref[...] = a_ref[...]
-
-    def panel(p, _):
-        c0 = p * b
-        dblk = out_ref[pl.ds(c0, b), pl.ds(c0, b)]  # [b, b]
-
-        def col(j, carry):
-            # d: partially factored diag block; w = inv(L_jj)^T built
-            # column-by-column (transpose form avoids transposes: the
-            # forward-substitution sum becomes a row-broadcast reduce)
-            d, w = carry
-            ej_col = (riota == j).astype(dtype)  # [b, 1]
-            ej_row = (ciota == j).astype(dtype)  # [1, b]
-            dj = jnp.sqrt(
-                jnp.sum(d * ej_col * ej_row, keepdims=True)
-            )  # [1, 1]
-            colv = jnp.sum(d * ej_row, axis=1, keepdims=True)  # [b,1] col j
-            rowv = jnp.sum(d * ej_col, axis=0, keepdims=True)  # [1,b] row j
-            l_col = jnp.where(riota >= j, colv / dj, zero)
-            l_col = jnp.where(riota == j, dj, l_col)
-            strict_col = jnp.where(riota > j, l_col, zero)
-            # the trailing (>= j) block is symmetric, so row j mirrors
-            # column j there; entries < j are masked off anyway
-            l_row = jnp.where(ciota >= j, rowv / dj, zero)
-            l_row = jnp.where(ciota == j, dj, l_row)
-            strict_row = jnp.where(ciota > j, l_row, zero)
-            d = d - strict_col * strict_row
-            d = jnp.where(ciota == j, l_col, d)
-            # w[:, j] = (e_j - W L[j, :j]^T) / dj  with  L[j, :j] from the
-            # already-written row j (rowv) plus the fresh diagonal dj
-            row_lj = jnp.where(ciota < j, rowv, zero)
-            s_col = jnp.sum(w * row_lj, axis=1, keepdims=True)  # [b, 1]
-            w_j = (ej_col - s_col) / dj
-            w = jnp.where(ciota == j, w_j, w)
-            return d, w
-
-        _, w_inv_t = jax.lax.fori_loop(
-            0, b, col, (dblk, jnp.zeros((b, b), dtype))
-        )
-
-        pan = out_ref[:, pl.ds(c0, b)]  # [n, b] (band rows still unfactored)
-        lpan = jnp.dot(
-            pan,
-            w_inv_t,
-            preferred_element_type=dtype,
-            precision=jax.lax.Precision.HIGHEST,  # full f32: bf16 MXU
-            # truncation loses ~1e-2 relative through the solve chain
-        )
-        keep = jnp.logical_and(
-            rows_n - c0 >= ciota, rows_n >= c0
-        )  # [n, b] lower-tri-within-band mask
-        lpan = jnp.where(keep, lpan, zero)
-        below = jnp.where(rows_n >= c0 + b, lpan, zero)
-        out_ref[...] = out_ref[...] - jax.lax.dot_general(
-            lpan,
-            below,
-            dimension_numbers=(((1,), (1,)), ((), ())),  # lpan @ below.T
-            preferred_element_type=dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        out_ref[:, pl.ds(c0, b)] = lpan
-        return 0
-
-    jax.lax.fori_loop(0, n // b, panel, 0)
-
-
-@partial(jax.jit, static_argnames=("block", "interpret"))
-def cholesky_pallas(k_matrix, block: int = 128, interpret: bool = False):
-    """L = chol(K) as ONE fused Pallas TPU kernel (VMEM-resident; n up to
-    ~1.4k in f32 given ~16 MB VMEM for the in+out pair).  The tiled SPD
-    factorization of SURVEY §7.4.  Dispatches and matches the dense
-    factor to ~4e-7 relative on the dev chip, but the sequential masked
-    column loop keeps it 4-8x slower than XLA's Cholesky (402 vs 47 ms
-    at n=512, PERFORMANCE.md) — production paths keep XLA's; this kernel
-    is the in-VMEM factorization building block for fused pipelines.
-
-    ``n`` must be a multiple of ``block`` (itself a multiple of 128, for
-    aligned lane-dimension dynamic slices)."""
-    k_matrix = jnp.asarray(k_matrix, jnp.float32)
-    n = k_matrix.shape[-1]
-    if n % block or block % 128:
-        raise ValueError(
-            f"n={n} must be a multiple of block={block}, and block a "
-            "multiple of 128"
-        )
-    out = pl.pallas_call(
-        partial(_chol_pallas_kernel, n=n, block=block),
-        out_shape=jax.ShapeDtypeStruct((n, n), jnp.float32),
-        interpret=interpret,
-    )(k_matrix)
-    return out

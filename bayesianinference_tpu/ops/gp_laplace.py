@@ -18,7 +18,7 @@ so GP classification (Bernoulli logit/probit) and GP count regression
 (Poisson, log link) plug into every engine through
 ``engines.gp_classify.define_gp_classifier``.
 
-TPU-first design — the whole path is matmul-shaped and TAPE-FREE:
+Accelerator-first design — the whole path is matmul-shaped and TAPE-FREE:
 
 * The Newton solve runs in a ``lax.while_loop`` (GPML Algorithm 3.1's
   stable W^{1/2} parameterization — one [n, n] Cholesky + matmuls per
@@ -34,8 +34,8 @@ TPU-first design — the whole path is matmul-shaped and TAPE-FREE:
       b_i = diag(K - K R K)_i * d^3 log p(y_i|f_i) / 2,
 
   reusing the blocked divide-and-conquer triangular inverse
-  (``gp_kernels._inv_from_chol``) for B^{-1} — the same MXU-friendly
-  form that made the regression-GP gradient 3.5x (PERFORMANCE.md).
+  (``gp_kernels._inv_from_chol``) for B^{-1} — the same matmul-friendly
+  form the regression-GP gradient uses.
   JAX then chains this K-cotangent through the kernel assembly to the
   hyperparameters automatically.
 
@@ -331,7 +331,7 @@ def _laplace_fwd(k, y, lik, maxiter, tol):
 def _laplace_bwd(lik, maxiter, tol, res, g):
     """Exact IFT gradient in K (GPML 5.21-5.23); see module docstring.
     B^{-1} via the blocked divide-and-conquer inverse keeps the whole
-    cotangent matmul-shaped on the MXU."""
+    cotangent matmul-shaped."""
     k, y, f_hat, a, sw, ell = res
     _, _, _, d3f = lik._derivs()
     b_inv = _inv_from_chol(ell)

@@ -8,7 +8,7 @@ O(d) mixing advantage over random-walk kernels comes at no modelling
 cost; it is the right default for smooth, moderately-high-dimensional
 posteriors (BNN readouts, GP hyperparameters, hierarchical models).
 
-TPU-first design choices:
+Accelerator-first design choices:
 
 * **Fixed trajectory length, jittered step size** — NUTS's
   data-dependent tree depth makes vmapped chains run worst-case masked
@@ -20,10 +20,9 @@ TPU-first design choices:
 * **Diagonal (default) or dense mass matrix** adapted from Welford
   moments in a windowed warmup (three fixed-length scan phases),
   dual-averaging step size to a target acceptance (Hoffman & Gelman
-  2014, Algorithm 5).  The dense form stays MXU-shaped: the mass is ONE
+  2014, Algorithm 5).  The dense form stays matmul-shaped: the mass is ONE
   shared [d, d] matrix, so every leapfrog touch is a [chains, d] @
-  [d, d] matmul — never a batched-tiny per-chain op (the TPU pathology
-  class, see CLAUDE.md) — and the momentum sampler is a precomputed
+  [d, d] matmul — never a batched-tiny per-chain op — and the momentum sampler is a precomputed
   triangular inverse applied the same way.
 * The whole warmup + sampling run is one jitted program; chains vmap.
 
@@ -87,7 +86,7 @@ def _apply_inv_mass(inv_mass, p):
 
     ``inv_mass`` is SHARED across chains (closed over, unbatched), so
     under vmap the dense form lowers to one [chains, d] @ [d, d] matmul
-    — the MXU-friendly shape — not a batched per-chain matvec."""
+    — the matmul-friendly shape — not a batched per-chain matvec."""
     if inv_mass.ndim == 2:
         return p @ inv_mass  # symmetric
     return inv_mass * p

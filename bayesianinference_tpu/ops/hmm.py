@@ -16,14 +16,14 @@ per-step per-state observation log-densities, so any distribution in
 :mod:`..dists` (or any callable) defines the emission model — compute
 ``log_obs`` with one vmapped batch evaluation.
 
-TPU-first construction, two interchangeable likelihood paths:
+Accelerator-first construction, two interchangeable likelihood paths:
 
 * ``method="sequential"`` — one ``lax.scan`` in log space; each step is
-  a [K, K] broadcast + logsumexp (pure VPU work, batches under vmap
+  a [K, K] broadcast + logsumexp (pure elementwise work, batches under vmap
   over chains into [chains, K, K]).
 * ``method="parallel"`` — the forward recursion is a chain of [K, K]
   matrix products; ``lax.associative_scan`` evaluates all prefixes in
-  log2(T) combine stages of [T, K, K] BATCHED matmuls (MXU work),
+  log2(T) combine stages of [T, K, K] BATCHED matmuls (matmul work),
   carrying a per-element log-norm so the linear-domain products never
   under/overflow — same long-series trick as the parallel Kalman
   filter (Sarkka & Garcia-Fernandez 2021).

@@ -13,7 +13,7 @@ decomposition, so hyperparameter inference plugs into every engine
 (NS/HMC/Laplace/SMC) through ``engines.ssm.define_state_space_model``
 with no approximation anywhere.
 
-TPU-first construction, two interchangeable filters:
+Accelerator-first construction, two interchangeable filters:
 
 * ``method="sequential"`` — one ``lax.scan`` over time; each step is a
   handful of [ds, ds] matrix products (Joseph-form covariance update for
@@ -29,8 +29,8 @@ TPU-first construction, two interchangeable filters:
 The log-likelihood is always evaluated as ONE batched pass after the
 filter: innovation factorizations use the unrolled
 :func:`..ops.metropolis.small_cholesky` for small observation dims
-(XLA's batched tiny ``cholesky`` is pathologically slow on TPU,
-PERFORMANCE.md) and fall back to ``jnp.linalg.cholesky`` above the
+(XLA's batched tiny ``cholesky`` was pathologically slow on the
+previous accelerator) and fall back to ``jnp.linalg.cholesky`` above the
 cutoff.  A failed factorization (non-PD innovation from absurd
 hyperparameters) yields NaN, which the problem layer's density guard
 maps to the finite log-zero sentinel.
@@ -437,7 +437,7 @@ def simulation_smoother(
     error x - E[x|y] independent of y, so the simulated error
     x* - E[x|y*] has exactly the posterior's covariance.
 
-    TPU-first: each draw is one prior simulation plus one smoother pass,
+    Accelerator-first shape: each draw is one prior simulation plus one smoother pass,
     vmapped over ``num_draws`` into [D, T, ds] batched tensor algebra
     (the data smoother pass is computed once and shared).  ``mask``
     ([T] bool, True = observed) conditions on the observed subset only;

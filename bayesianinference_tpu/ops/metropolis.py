@@ -7,10 +7,10 @@ a Haario-style random-walk Metropolis in log-density space whose proposal
 covariance is adapted from the running sample mean/covariance after a learn
 delay (default 20, matching ``"CovarianceLearnDelay"``, BS:667).
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
 * One chain step is a handful of FMAs on [d]-vectors; the throughput comes
   from **vmapping the whole kernel over many chains** (nested-sampling
-  live points), which batches every op across the chain axis on the VPU.
+  live points), which batches every op across the chain axis as elementwise ops.
 * The proposal-covariance **Cholesky factor is maintained directly** by a
   rank-one update per absorbed point (O(d^2) elementwise ops) instead of
   refactorizing the Welford covariance every step (O(d^3/6)): the Welford
@@ -18,7 +18,7 @@ Design notes (TPU-first):
   scale plus symmetric rank-1 perturbation, so
   ``L <- cholupdate(sqrt(a)*L, sqrt(b)*d)`` (LINPACK ``dchud`` rotations).
   This is what fixed the d>=16 throughput collapse of the
-  refactorize-per-step design (PERFORMANCE.md dimension sweep).
+  refactorize-per-step design.
 * The state is a flat pytree (`AMState`) so `lax.scan` / `lax.while_loop`
   can evolve it on device; the "FullState" seeding of the reference
   (chain seeded at iteration ``t0=10`` with a carried-over mean/cov,
@@ -127,10 +127,10 @@ def am_init(
     )
 
 
-# Unrolled-Cholesky cutoff.  XLA's batched tiny-matrix cholesky is
-# pathological on TPU (245 ms for [32k, 32, 32] — it serializes); the
-# unrolled Crout is 3.5 ms at the same shape (70x) and its compile time
-# stays a few seconds at d = 32.  Beyond this, prefer the slice kernel,
+# Unrolled-Cholesky cutoff.  XLA's batched tiny-matrix cholesky
+# serialized on the previous accelerator; the unrolled Crout fuses and its
+# compile time stays a few seconds at d = 32.  The cutoff has not been
+# re-derived on the GPU, where XLA calls cuSOLVER's batched kernels.  Beyond this, prefer the slice kernel,
 # whose direction factorization happens once per chain block, not per
 # step (monte_carlo_method="slice").
 _SMALL_CHOL_MAX_DIM = 32
@@ -142,10 +142,9 @@ def small_cholesky(
     """Unrolled Cholesky-Crout for small static d, batched over leading
     dims as pure elementwise ops.
 
-    XLA's TPU `cholesky` lowers tiny batched factorizations (the [d, d]
-    proposal covariances of thousands of vmapped chains) to a serialized
-    kernel costing ~milliseconds per call; this unrolled form is a handful
-    of fused VPU ops regardless of the batch size.  NaN propagates for
+    Tiny batched factorizations (the [d, d] proposal covariances of
+    thousands of vmapped chains) become a handful of fused elementwise
+    ops regardless of the batch size.  NaN propagates for
     non-PD inputs (same contract as `jnp.linalg.cholesky`).
 
     ``symmetrize_input=True`` (the default) factorizes ``(a + a^T)/2``,
@@ -297,9 +296,8 @@ def am_step(key, state: AMState, log_density_fn: Callable, learn_delay: int = 20
 
 # Below this dimension the proposal matmul L @ Z and the block-end syrk
 # M M^T are unrolled into elementwise multiply/reduce ops: XLA lowers
-# batched tiny matmuls ([chains, d, d] @ [chains, d, j]) to a slow kernel
-# on TPU (same pathology as batched tiny cholesky), while the unrolled
-# form fuses on the VPU.
+# batched tiny matmuls ([chains, d, d] @ [chains, d, j]) to a separate
+# batched-matmul kernel, while the unrolled form fuses as elementwise ops.
 _SMALL_MATMUL_MAX_DIM = 8
 
 
@@ -339,7 +337,7 @@ def am_block(
     learn_delay: int = 20,
 ):
     """``num_steps`` Metropolis steps with BLOCK-DELAYED adaptation — the
-    TPU-shaped form of the chain (used by :func:`run_chain`):
+    accelerator-shaped form of the chain (used by :func:`run_chain`):
 
     * All ``num_steps`` proposal step vectors are precomputed with ONE
       batched matmul ``scale * L @ Z1 + jitter_std * Z2`` (random-walk
@@ -347,13 +345,13 @@ def am_block(
       the [d, d] factor is read once per block, not once per step —
       at d=32 x 32k vmapped chains the factor alone is 128 MB, and
       per-step factor traffic is what made both the refactorize-per-step
-      and the rank-1-per-step kernels HBM-bound (PERFORMANCE.md).
+      and the rank-1-per-step kernels memory-bound.
     * Each step runs accept/reject and absorbs the visited state into the
       running mean and a scaled-delta buffer (cheap [d]-vector ops).
     * At block end the factor is rebuilt once: the Welford recursion
       telescopes to ``C_Tj = (T0/Tj) C_T0 + (1/Tj) sum_t ((t-1)/t) d_t d_t^T``
       so ``C_Tj = M M^T`` with ``M = [sqrt(T0/Tj) L | D]`` — one
-      MXU-shaped syrk + one unrolled :func:`small_cholesky`.
+      matmul-shaped syrk + one unrolled :func:`small_cholesky`.
 
     The proposal covariance is thus frozen within a block (diminishing
     adaptation still holds; the per-step-adapting reference semantics,
@@ -443,9 +441,9 @@ def run_chain(
     By default the whole call is ONE :func:`am_block` — proposal factor
     frozen for the call, rebuilt once at the end.  Callers that need
     finer within-call adaptation (long standalone chains) pass
-    ``block_size`` to refresh the factor every that many steps; measured
-    on TPU the outer block scan carries a large fixed cost per block
-    (PERFORMANCE.md round-3 block-size sweep), so chains driven in
+    ``block_size`` to refresh the factor every that many steps; the
+    outer block scan carried a large fixed cost per block on the
+    previous accelerator, so chains driven in
     short segments anyway (NS iterations, thinning blocks, retry
     extensions) should keep the single-block default."""
     if block_size is None or block_size >= num_steps:

@@ -9,7 +9,7 @@ input kernel k(x, x') through a coregionalization matrix B [T, T],
 so observations of one output inform predictions of another — the
 standard multi-task GP (Bonilla, Chai & Williams 2008).
 
-TPU-first design:
+Accelerator-first design:
 
 * The joint covariance over the [n, T] grid is the Kronecker product
   B (x) Kx assembled as ONE outer-product einsum into an [nT, nT]

@@ -8,7 +8,7 @@ theta) for any state-space model specified by samplers and a
 pointwise observation density — stochastic volatility, count
 observations, regime switching, anything.
 
-TPU-first design:
+Accelerator-first design:
 
 * Particles are a [P, ds] batch: the transition sampler and observation
   density are vmapped wide ops, the whole T-step filter is ONE

@@ -26,16 +26,16 @@ Tracking (maneuvering targets with switching dynamics), regime-
 switching structural time series, and conditionally-Gaussian
 volatility models are the canonical uses.
 
-TPU-first design mirrors :mod:`.particle`: particles are a [P, du]
+Accelerator-first design mirrors :mod:`.particle`: particles are a [P, du]
 batch with per-particle Kalman moments [P, dx] / [P, dx, dx]; the
 conditional matrices are built by ONE vmapped call per step, so the
-scan body is [P, dx, dx] batched tensor algebra (MXU work); systematic
+scan body is [P, dx, dx] batched tensor algebra (matmul work); systematic
 resampling moves (u, m, P) together; the ESS test selects between
 branches with a ``where`` (no data-dependent control flow).  The
 innovation factorization uses the unrolled
 :func:`.metropolis.small_cholesky` below the same cutoff as
-:mod:`.kalman` (XLA's batched tiny Cholesky is pathologically slow on
-TPU, PERFORMANCE.md).
+:mod:`.kalman` (XLA's batched tiny Cholesky was pathologically slow on
+the previous accelerator).
 """
 
 from __future__ import annotations

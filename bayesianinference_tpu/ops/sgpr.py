@@ -2,9 +2,8 @@
 
 Beyond-reference scaling path for the GP stack: the reference's dense
 Cholesky logML (``gaussianProcessLogLikelihood``, GP:161-199) is O(n^3)
-flops and O(n^2) HBM, which caps a single chip at n = 16k (measured,
-PERFORMANCE.md "GP logML": the n = 32k program needs ~12 GB of n^2
-temporaries and fails remote compile).  The collapsed variational bound
+flops and O(n^2) device memory (K, L and the gradient's K^-1 are each
+n^2, so n is capped by the card's memory).  The collapsed variational bound
 of Titsias 2009 ("Variational Learning of Inducing Variables in Sparse
 Gaussian Processes", AISTATS) replaces the n x n factorization with
 m << n inducing points:
@@ -13,17 +12,17 @@ m << n inducing points:
     Q_nn = K_nm K_mm^-1 K_mn,
 
 computable with ONE m x m Cholesky plus [m, n] matmuls — O(n m^2) flops
-on the MXU and O(n m) memory, so n = 1M+ fits on a chip and the n axis
+as matmuls and O(n m) memory, so n = 1M+ fits on a chip and the n axis
 shards across a mesh with one psum of ([m, m], [m], scalar) statistics
 (``engines/sparse_gp._sharded_bound_fn``).
 
-TPU-first construction:
+Accelerator-first construction:
 
 * the only triangular solves are at m x m; the [m, n] "whitened" factor
   ``A = L^-1 K_mn / sigma`` is formed by the blocked divide-and-conquer
   inverse (:func:`..ops.gp_kernels._tri_inv_lower`) + one matmul —
-  XLA's wide-RHS ``solve_triangular`` substitution serializes off the
-  MXU and materializes huge temps (PERFORMANCE.md round 1);
+  XLA's wide-RHS ``solve_triangular`` substitution serializes and
+  materializes huge temps;
 * all n-sized reductions are linear passes (Gram matmul, row-sum,
   dot): nothing ever materializes an n x n block;
 * failed factorizations return the finite per-dtype log-zero sentinel

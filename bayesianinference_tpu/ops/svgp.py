@@ -12,7 +12,7 @@ decomposes over data points, so it minibatches: classification and
 count regression at n far beyond the O(n^3) Laplace/EP bridge
 (:mod:`.gp_laplace`, :mod:`.gp_ep`), which stay the exact-n references.
 
-TPU-first design:
+Accelerator-first design:
 
 * WHITENED parameterization u = L_zz v, q(v) = N(m, L L^T): the KL is
   the closed-form (||m||^2 + ||L||_F^2 - 2 sum log L_ii - M)/2 with NO
@@ -22,7 +22,7 @@ TPU-first design:
       mu_i = a_i^T m
       s2_i = k_ii - ||a_i||^2 + ||L^T a_i||^2,
 
-  so one ELBO evaluation is ONE [M, M] Cholesky + [M, n] MXU matmuls —
+  so one ELBO evaluation is ONE [M, M] Cholesky + [M, n] matmuls —
   O(n M^2), no [n, n] array ever.
 * The per-point expected log-likelihood uses Gauss-Hermite quadrature
   of the likelihood's scalar ``log_prob`` (same generic route as the

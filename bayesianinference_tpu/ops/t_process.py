@@ -15,7 +15,7 @@ heavy tails (nu -> inf recovers the GP exactly), so outliers in y
 inflate beta instead of wrecking the fit.  K is the SCALE matrix: the
 process covariance is nu/(nu-2) K for nu > 2.
 
-TPU-first design mirrors ``gp_kernels``: ONE Cholesky per evaluation,
+Accelerator-first design mirrors ``gp_kernels``: ONE Cholesky per evaluation,
 and the hyperparameter gradient is a closed-form ``custom_vjp`` —
 
     dlogp/dK  = c alpha alpha^T - K^-1/2,   c = (nu+n)/(2(nu+beta)),

@@ -1,7 +1,7 @@
 """One nested-sampling program over a runs x live x data device mesh.
 
 The three production parallel axes composed into a SINGLE public program
-(round-2 VERDICT item 3; reference counterparts BS:1317-1371 + the SURVEY
+(reference counterparts BS:1317-1371 + the SURVEY
 §2.4/§5 long-axis notes):
 
 * ``runs`` — independent NS runs, merged exactly by the X-ordering
@@ -299,6 +299,7 @@ def multi_axis_nested_sampling(
     result = merge_runs(
         dead_p, dead_l, dead_pr, n_dead, live, logl, logp,
         total_pool=n_runs * n,
+        num_delete=k,
         key=jax.random.fold_in(k_loop, 1),
         post_process_sampling_runs=post_process_sampling_runs,
         empirical_posterior_type=empirical_posterior_type,

@@ -17,9 +17,8 @@ with the single-device engine (``_stage_interval`` / ``_stage_seeds``),
 so the two front-ends cannot drift.
 
 Serving note: the per-stage stop level is a TRACED replicated scalar of
-the batch program (round 5; it was a static config field before, which
-recompiled the loop on every data-dependent stage — measured ~13.5 s
-per remote compile on chip), so all stages of all fits share one
+the batch program (a static config field would recompile the loop on
+every data-dependent stage), so all stages of all fits share one
 compiled program per (mesh, static config).
 
 Reference: parallelNestedSampling merges equal full runs
@@ -66,8 +65,7 @@ def _batch_runs_program(mesh, cfg):
     jitted shard_map program, cached per (mesh, static loop config).  The
     per-stage stop level is a TRACED replicated scalar, so every stage of
     every fit reuses this one compiled program (a static stop field
-    recompiled the loop per stage — measured ~13.5 s per remote compile
-    on chip)."""
+    would recompile the loop per stage)."""
 
     @partial(
         jax.shard_map,

@@ -2,7 +2,7 @@
 
 Walkers are sharded over the mesh WITHIN each complementary half: a
 device updates its shard of half A against the FULL half B (one
-[W/2, d] ``all_gather`` per half-update, riding ICI), so every walker
+[W/2, d] ``all_gather`` per half-update, over the interconnect), so every walker
 still proposes from the entire complementary ensemble — the move is
 statistically identical to the single-device sweep, and the collective
 payload is tiny (the walker positions, not the density evaluations,

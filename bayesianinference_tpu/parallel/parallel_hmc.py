@@ -2,7 +2,7 @@
 
 Chains are independent Markov processes, but the warmup is shared: the
 dual-averaging step size consumes the acceptance mean of ALL chains
-(one scalar ``pmean`` per warmup step over ICI) and the mass matrix is
+(one scalar ``pmean`` per warmup step over the interconnect) and the mass matrix is
 set from the globally merged Welford variances — so every device
 freezes identical (step_size, mass), exactly as if all chains lived on
 one chip.  The per-chain key layout differs from the single-device

@@ -5,7 +5,7 @@ is almost embarrassingly parallel in the particle axis: the expensive
 work (the pointwise log-likelihood matrix and the rejuvenation chains)
 is per-particle, while the weight bookkeeping needs only SCALAR
 reductions.  The mesh form therefore shards particles and uses three
-collectives per stage, all riding ICI:
+collectives per stage, all over the interconnect:
 
 * a ``pmax``/``psum`` pair implementing the global ``logsumexp`` for the
   prequential increment, the normalization, and the ESS;

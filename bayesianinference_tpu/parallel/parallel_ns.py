@@ -1,6 +1,6 @@
 """Mesh-parallel nested sampling.
 
-TPU-native replacement for ``parallelNestedSampling``
+Accelerator-native replacement for ``parallelNestedSampling``
 (BayesianStatistics.wl:1317-1371): R independent runs execute as ONE
 ``shard_map`` program over a ``runs`` mesh axis (vmapped within each device
 when R exceeds the device count), then merge EXACTLY via the X-ordering
@@ -27,11 +27,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..engines.evidence import (
-    NestedSamplingResult,
-    dedup_by_point,
-    evidence_sampling,
-)
+from ..engines.dynamic_ns import NSSegment, merge_segments
+from ..engines.evidence import NestedSamplingResult, evidence_sampling
 from ..engines.nested_sampling import (
     evals_to_int,
     generate_starting_points,
@@ -53,15 +50,20 @@ def merge_runs(
     live_logp,  # [R, n]
     *,
     total_pool: int,
+    num_delete: int = 1,
     key,
     post_process_sampling_runs: Optional[int] = 100,
     empirical_posterior_type: str = "Simple",
     param_names=(),
 ) -> NestedSamplingResult:
     """Exact merge of R independent NS runs (``combineRuns``,
-    BS:1293-1315): union the samples (dedup by point, BS:1294-1297), sum
-    the pool sizes, and re-run evidence resampling on the constant
-    combined pool (BS:1307).
+    BS:1293-1315): union the samples and re-run evidence resampling with
+    the merged per-deletion pool sizes — the sum over runs of each run's
+    live count at that likelihood level.  With ``num_delete=1`` that is
+    the reference's constant combined pool (BS:1307); with batched
+    deletion (``num_delete`` = k per run per iteration) each run's pool
+    dips by up to k-1 within an iteration, and a constant pool would
+    overstate the shrinkage per death.
 
     All device buffers are fetched ONCE (one host transfer per array,
     independent of R) and sliced in numpy — no per-run device sync."""
@@ -75,23 +77,27 @@ def merge_runs(
     ll_ = np.asarray(live_logl)
     lpr_ = np.asarray(live_logp)
 
-    pts_list, ll_list, lp_list = [], [], []
+    segments = []
     for r in range(nd.shape[0]):
         order = np.argsort(ll_[r], kind="stable")
-        pts_list.append(np.concatenate([dp[r, : nd[r]], lp_[r][order]]))
-        ll_list.append(np.concatenate([dl[r, : nd[r]], ll_[r][order]]))
-        lp_list.append(np.concatenate([dpr[r, : nd[r]], lpr_[r][order]]))
-    pts = jnp.asarray(np.concatenate(pts_list))
-    ll = jnp.asarray(np.concatenate(ll_list))
-    lp = jnp.asarray(np.concatenate(lp_list))
-    pts, ll, lp = dedup_by_point(pts, ll, lp)
-    order = jnp.argsort(ll, stable=True)
+        segments.append(
+            NSSegment(
+                points=np.concatenate([dp[r, : nd[r]], lp_[r][order]]),
+                log_likelihoods=np.concatenate([dl[r, : nd[r]], ll_[r][order]]),
+                log_priors=np.concatenate([dpr[r, : nd[r]], lpr_[r][order]]),
+                n_live=ll_.shape[1],
+                num_delete=num_delete,
+                n_dead=int(nd[r]),
+                constraint_logl=-np.inf,
+            )
+        )
+    pts, ll, lp, m = merge_segments(segments)
     return evidence_sampling(
-        points=pts[order],
-        log_likelihoods=ll[order],
-        log_priors=lp[order],
+        points=jnp.asarray(pts),
+        log_likelihoods=jnp.asarray(ll),
+        log_priors=jnp.asarray(lp),
         sample_pool_size=total_pool,
-        schedule=None,  # constant combined pool (BS:1307)
+        schedule=m,
         key=key,
         num_runs=post_process_sampling_runs,
         empirical_posterior_type=empirical_posterior_type,
@@ -190,6 +196,7 @@ def parallel_nested_sampling(
         dead_points, dead_logl, dead_logp, n_dead,
         live_points, live_logl, live_logp,
         total_pool=num_runs * sample_pool_size,
+        num_delete=cfg.num_delete,
         key=jax.random.fold_in(key, 1),
         post_process_sampling_runs=post_process_sampling_runs,
         empirical_posterior_type=empirical_posterior_type,

@@ -4,11 +4,11 @@ observation axis is distributed over a device mesh.
 The reference's conjugate fits are single-kernel dense linear algebra
 (``BayesianLinearRegression``, BayesianLinearRegression.wl:32-128;
 ``conjugatePriorModel``, BayesianConjugatePriors.wl:97-295).  Their
-long-data TPU form: every model here is a function of O(k^2)-sized
+long-data mesh form: every model here is a function of O(k^2)-sized
 sufficient statistics — (X^T X, X^T Y, Y^T Y, n) for regression,
 (sum x, scatter, n) for the mean/covariance models — so each device
-computes its shard's statistics with local MXU matmuls and ONE ``psum``
-per statistic rides the ICI; the tiny conjugate update and the exact
+computes its shard's statistics with local matmuls and ONE ``psum``
+per statistic crosses the interconnect; the tiny conjugate update and the exact
 candidate-point log evidence then run replicated.  Communication is
 O(k^2) regardless of n.
 
@@ -56,7 +56,7 @@ def _sharded_blr_program(mesh, axis_name, basis, include_constant, m):
     """Jitted sharded fit (stats shard_map + update + logZ), cached on the
     (mesh, axis, basis, layout) statics — the engine-jit convention:
     repeated fits with a stable basis pay device time only, not the
-    remote re-trace/compile."""
+    re-trace/compile."""
 
     @partial(
         jax.shard_map,

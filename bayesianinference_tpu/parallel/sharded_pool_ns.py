@@ -103,11 +103,6 @@ def sharded_pool_nested_sampling(
             f"num_delete {k} must be < pool/devices = {n_loc} so every "
             "device keeps survivors to seed its chains"
         )
-    if isinstance(monte_carlo_steps, int):
-        mc = (monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps)
-    else:
-        mc = tuple(monte_carlo_steps)
-
     k_start, k_loop = jax.random.split(
         jax.random.PRNGKey(0) if key is None else key
     )
@@ -120,6 +115,10 @@ def sharded_pool_nested_sampling(
     monte_carlo_method = resolve_monte_carlo_method(monte_carlo_method, dim)
     if monte_carlo_steps is None:
         monte_carlo_steps = default_monte_carlo_steps(monte_carlo_method, dim)
+    if isinstance(monte_carlo_steps, int):
+        mc = (monte_carlo_steps, monte_carlo_steps, 5 * monte_carlo_steps)
+    else:
+        mc = tuple(monte_carlo_steps)
     if monte_carlo_method == "chmc":
         raise ValueError(
             "monte_carlo_method='chmc' is not supported by the pool-sharded "

@@ -2,13 +2,13 @@
 
 The reference's only distribution mechanism is coarse process-level
 parallelism over WSTP kernel links (``LaunchKernels``/``ParallelTable``,
-BayesianStatistics.wl:1348-1371).  The TPU-native equivalents here:
+BayesianStatistics.wl:1348-1371).  The accelerator-native equivalents here:
 
 * ``make_mesh`` — build a ``jax.sharding.Mesh`` over the available devices
-  (runs axis across slices / DCN, data axis within a slice / ICI).
+  (runs axis across hosts, data axis within a host's NVLink domain).
 * ``shard_data`` — place a likelihood's data axis across a mesh axis; any
   jitted ``sum``-reduction likelihood is then automatically parallelized by
-  GSPMD (the partial sums ride the ICI as one psum).
+  GSPMD (the partial sums cross the interconnect as one psum).
 * ``replicated`` — explicitly replicate small arrays (parameters).
 """
 

@@ -10,7 +10,7 @@ uniform on {0, ..., L} — for ANY prior, likelihood, and data size — so
 non-uniformity localizes bugs (biased samplers, wrong Jacobians,
 under-dispersed approximations) without needing a closed-form posterior.
 
-TPU-first shape: one replication is (prior draw -> simulate -> fit ->
+Accelerator-first shape: one replication is (prior draw -> simulate -> fit ->
 L posterior draws -> d ranks).  When every stage is traceable
 (``vectorized=True``) the WHOLE study runs as a single jitted
 ``vmap`` over replications — hundreds of fits per dispatch, the same

@@ -1,4 +1,10 @@
-from .config import EvidenceOptions, MCMCOptions, NestedSamplingOptions
+from .config import (
+    EvidenceOptions,
+    MCMCOptions,
+    NestedSamplingOptions,
+    compilation_cache_dir,
+    enable_compilation_cache,
+)
 from .graph import ModelGraph, dependency_data, model_graph
 from .profiling import timed, trace
 from .validation import check_traceable, distribution_dimension
@@ -9,6 +15,8 @@ __all__ = [
     "EvidenceOptions",
     "MCMCOptions",
     "NestedSamplingOptions",
+    "compilation_cache_dir",
+    "enable_compilation_cache",
     "ModelGraph",
     "dependency_data",
     "model_graph",

@@ -1,8 +1,8 @@
-"""Latent-GP engines on the real TPU chip: Laplace vs EP logML+grad
-latency, SVGP step throughput, and the multi-output GP.
+"""Latent-GP engines on the GPU: Laplace vs EP logML+grad latency, SVGP
+step throughput, and the multi-output GP.
 
-Timing follows PERFORMANCE.md conventions: persistent compile cache,
-host-fetch completion (float()), best-of-3.
+Timing: persistent compile cache, ``block_until_ready`` inside the
+clock, best-of-3.
 """
 
 import sys
@@ -14,11 +14,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from bayesianinference_tpu.ops.gp_ep import gp_ep_log_marginal
 from bayesianinference_tpu.ops.gp_kernels import covariance_matrix, se_kernel
@@ -37,11 +32,11 @@ from bayesianinference_tpu.ops.svgp import (
 
 
 def _best(fn, reps=3):
-    float(fn())  # compile + warm
+    jax.block_until_ready(fn())
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        float(fn())
+        jax.block_until_ready(fn())
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -143,6 +138,9 @@ def bench_mogp(n=2048, t_out=4):
 
 
 if __name__ == "__main__":
+    from bayesianinference_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     print(f"devices: {jax.devices()}", flush=True)
     bench_bridges()
     bench_svgp_step()

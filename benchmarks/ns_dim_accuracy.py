@@ -42,11 +42,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from bayesianinference_tpu import dists as d
 from bayesianinference_tpu.models import define_inference_problem
@@ -87,7 +82,7 @@ def run_case(dim: int, method: str, correlated: bool, n_live=8192,
         chmc_step_size=chmc_step_size,
         chmc_num_leapfrog=chmc_num_leapfrog,
     )
-    logz = float(r.state.log_z)  # host fetch => real completion
+    logz = float(jax.block_until_ready(r.state.log_z))
     wall = time.perf_counter() - t0
     evals = evals_to_int(r.state.num_likelihood_evals)
     iters = int(r.state.iteration)
@@ -115,4 +110,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from bayesianinference_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     main()

@@ -1,5 +1,4 @@
-"""NS likelihood-eval throughput vs parameter dimension (PERFORMANCE.md
-dimension sweep).
+"""NS likelihood-eval throughput vs parameter dimension.
 
 Config matches bench.py's throughput shape: unit-Gaussian likelihood in a
 [-5, 5]^d box, 65,536 live points, 32,768 chains/iteration, 200 chain
@@ -27,11 +26,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 from bayesianinference_tpu import dists as d
 from bayesianinference_tpu.models import define_inference_problem
@@ -91,12 +85,12 @@ def sweep_point(dim: int, method: str, n_live=65536, num_delete=32768,
         )
 
     r = run(key)
-    float(r.state.log_z)  # compile + warm (host fetch => real completion)
+    jax.block_until_ready(r.state.log_z)  # compile + warm
     best = float("inf")
     for rep in range(3):
         t0 = time.perf_counter()
         r = run(jax.random.fold_in(key, rep + 1))
-        float(r.state.log_z)
+        jax.block_until_ready(r.state.log_z)
         best = min(best, time.perf_counter() - t0)
     evals = evals_to_int(r.state.num_likelihood_evals)
     return evals / best, evals, best
@@ -120,4 +114,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from bayesianinference_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     main()

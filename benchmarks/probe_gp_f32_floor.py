@@ -1,8 +1,6 @@
 """Stage-by-stage f32 error decomposition of the GP logML pipeline.
 
-The committed form of the round-5 probe behind PERFORMANCE.md's "f32 GP
-logML floor" table (the analysis that closed VERDICT-r4 item 4).  Runs
-on CPU so every stage has an exact f64 twin; the SE config is identical
+Runs on CPU so every stage has an exact f64 twin; the SE config is identical
 to ``precision.py::check_gp`` (n=256, d=2, amp 1.3, ls 0.8, nugget
 0.05), the one PRECISION config that sat above the 1e-6 north star.
 

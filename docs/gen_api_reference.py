@@ -37,8 +37,8 @@ MODULES = [
      "Inference engines: nested sampling, MCMC, conjugate, Laplace, "
      "direct quadrature, GP, checkpointing"),
     ("bayesianinference_tpu.ops", "ops",
-     "TPU compute kernels: adaptive Metropolis, slice sampling, GP "
-     "covariance/logML (incl. Pallas variants), NS bookkeeping math"),
+     "Compute kernels: adaptive Metropolis, slice sampling, GP "
+     "covariance/logML, NS bookkeeping math"),
     ("bayesianinference_tpu.parallel", "parallel",
      "Mesh parallelism: run-sharded and pool-sharded NS, sharded GP and "
      "conjugate fits, distributed blocked Cholesky"),

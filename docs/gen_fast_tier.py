@@ -1,6 +1,6 @@
 """Generate tests/fast_tier.txt from a BI_SUITE_DIAG timing capture.
 
-The fast dev tier (VERDICT r4 item 3): a `-m fast` subset that covers
+The fast dev tier: a `-m fast` subset that covers
 every test file's primary oracle and finishes in well under 10 minutes
 on the single-core dev box, while the full non-slow suite stays the
 CI / order-independence gate.

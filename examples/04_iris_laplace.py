@@ -16,7 +16,7 @@ SMOKE = _os.environ.get("BI_EXAMPLE_SMOKE") == "1"
 import jax
 import jax.numpy as jnp
 import numpy as np
-from sklearn.datasets import load_iris
+from bayesianinference_tpu.data import load_iris
 
 from bayesianinference_tpu import dists as d
 from bayesianinference_tpu.models import define_inference_problem

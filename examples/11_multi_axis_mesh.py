@@ -1,6 +1,6 @@
 """Composed runs x live x data nested sampling on a (2, 2, 2) mesh.
 
-ONE program carries all three production parallel axes (the TPU form of
+ONE program carries all three production parallel axes (the mesh form of
 ``parallelNestedSampling``, BayesianStatistics.wl:1317-1371, plus the
 long-data/long-pool axes the reference lacks):
 
@@ -10,8 +10,8 @@ long-data/long-pool axes the reference lacks):
   by one ``psum`` per density evaluation.
 
 Run:  python examples/11_multi_axis_mesh.py
-(uses 8 virtual CPU devices; on a real 8-chip TPU slice drop the CPU
-platform override and the collectives ride the ICI instead)
+(uses 8 virtual CPU devices; on a multi-GPU host drop the CPU platform
+override and the collectives run over NVLink instead)
 """
 
 import os as _os

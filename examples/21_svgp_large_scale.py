@@ -3,7 +3,7 @@
 20,000 binary observations — far beyond the O(n^3) exact bridges — fit
 with M = 128 inducing points and minibatches of 512: memory is
 O(M^2 + BM) regardless of n, and every Adam step is one [M, M]
-Cholesky + [M, B] matmuls (MXU work on TPU).  A small-n slice is
+Cholesky + [M, B] matmuls (matmul work on the device).  A small-n slice is
 cross-checked against the exact Laplace bridge.
 
 Run:  python examples/21_svgp_large_scale.py   (writes svgp.png)

@@ -23,7 +23,7 @@ SMOKE = _os.environ.get("BI_EXAMPLE_SMOKE") == "1"
 import jax
 import jax.numpy as jnp
 import numpy as np
-from sklearn.datasets import load_iris
+from bayesianinference_tpu.data import load_iris
 
 from bayesianinference_tpu.engines import (
     fit_svgp_heteroscedastic,

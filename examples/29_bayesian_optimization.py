@@ -2,7 +2,7 @@
 
 The reference package builds GP regression (GP:201-330) but leaves its
 classic consumer — sequential model-based optimization — to the user.
-This engine closes the loop TPU-first: the growing dataset lives in
+This engine closes the loop accelerator-first: the growing dataset lives in
 capacity-padded masked buffers, so hyperparameter adaptation,
 acquisition maximization and the objective evaluation all run inside
 ONE compiled `lax.scan` (no per-step retrace as n grows).

@@ -82,5 +82,5 @@ print(
     "\nBoth recover the scales — the AM kernel earns it by LEARNING the "
     "covariance\n(a long adaptation transient on harder targets); the "
     "ensemble gets it for free\nby affine invariance, with 128 "
-    "independent walkers forming the TPU batch axis."
+    "independent walkers forming the device batch axis."
 )

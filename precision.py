@@ -1,8 +1,8 @@
-"""Machine-captured accuracy parity for the BASELINE configs (PRECISION.json).
+"""Machine-captured accuracy parity of the exact-evidence paths
+(PRECISION.json).
 
-The north star requires logZ within 1e-6 relative of the reference /
-analytic value.  This harness runs the five deterministic checks with an
-independent oracle each and records relative errors:
+This harness runs seven deterministic checks, each with an independent
+oracle, and records relative errors (the CPU f64 gate is 1e-6):
 
 1. ``blr_exact_logz``       — conjugate BLR candidate-point log evidence
                               (LR:289-366) vs the independent textbook
@@ -24,10 +24,13 @@ independent oracle each and records relative errors:
 
 Usage::
 
-    python precision.py          # CPU: f64 (exact) + f32 (TPU dtype class)
-    python precision.py --tpu    # on-chip f32 section (no f64 on TPU)
+    python precision.py          # CPU: f64 (exact) + f32
+    python precision.py --gpu    # GPU f32, native and software
+                                 # transcendentals (core.precise "off"/"on")
 
-Each run merges its sections into PRECISION.json.
+Each run merges its sections into PRECISION.json.  The GPU leg exits
+non-zero without a GPU (no CPU fallback) and records the card's name,
+power limit and the matmul precision it ran at.
 """
 
 from __future__ import annotations
@@ -36,18 +39,13 @@ import json
 import os
 import sys
 
-ON_TPU = "--tpu" in sys.argv
+ON_GPU = "--gpu" in sys.argv
 
 import jax
 
-if not ON_TPU:
+if not ON_GPU:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-try:
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
 
 import jax.numpy as jnp
 import numpy as np
@@ -328,9 +326,27 @@ def main():
         with open(path) as f:
             result = json.load(f)
 
-    if ON_TPU:
-        print(f"[tpu_f32] platform={jax.default_backend()}")
-        result["tpu_f32"] = run_section(jnp.float32)
+    from bayesianinference_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
+    if ON_GPU:
+        from chip_smoke import card_name_and_power_limit, require_gpu
+
+        from bayesianinference_tpu.core.precise import set_precise_mode
+
+        devices = require_gpu()
+        matmul = jax.config.jax_default_matmul_precision or "default"
+        result["gpu"] = {
+            "card": card_name_and_power_limit(),
+            "device_kind": devices[0].device_kind,
+            "jax": jax.__version__,
+            "matmul_precision": matmul,
+        }
+        print(f"[gpu] {result['gpu']}")
+        for mode in ("off", "on"):
+            set_precise_mode(mode)
+            print(f"[gpu_f32_precise_{mode}]")
+            result[f"gpu_f32_precise_{mode}"] = run_section(jnp.float32)
     else:
         print("[f64] platform=cpu")
         result["f64"] = run_section(jnp.float64)
@@ -344,8 +360,6 @@ def main():
             e <= 1e-6 for e in errs
         )
 
-    # gp on TPU runs the matmul-heavy path in the bf16 3-pass class; the
-    # direct-vs-automatic agreement is additionally covered in tests
     with open(path, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({k: v for k, v in result.items()

@@ -16,7 +16,6 @@ from bayesianinference_tpu.ops import (
     gp_log_marginal_likelihood,
     gp_posterior_moments,
     matern32_kernel,
-    se_covariance_pallas,
     se_kernel,
     squared_distances,
     white_kernel,
@@ -33,8 +32,7 @@ def test_squared_distances(rng):
 
 def test_squared_distances_matmul_branch(rng, monkeypatch):
     """Both dispatch branches agree; the direct-difference form is at
-    least as accurate per entry in f32 (the matmul identity cancels —
-    PERFORMANCE.md 'f32 GP logML floor')."""
+    least as accurate per entry in f32 (the matmul identity cancels)."""
     from bayesianinference_tpu.ops import gp_kernels as gk
 
     a = rng.normal(size=(32, 3)) + 5.0  # offset => |a.b| >> |a-b|^2
@@ -140,15 +138,6 @@ def test_posterior_moments_exact(rng):
     np.testing.assert_allclose(np.asarray(s) ** 2, want_v, rtol=1e-7, atol=1e-10)
 
 
-def test_se_covariance_pallas_interpret(rng):
-    x = jnp.asarray(rng.normal(size=(70, 3)).astype(np.float32))
-    got = se_covariance_pallas(x, 1.5, 0.8, nugget=0.05, block=64, interpret=True)
-    want = covariance_matrix(
-        se_kernel(1.5, 0.8), jnp.asarray(x, jnp.float32), nugget=0.05
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-5)
-
-
 @pytest.mark.slow
 def test_gp_full_pipeline(rng, key):
     """defineGaussianProcess -> nested sampling -> prediction, vs the truth."""
@@ -239,7 +228,7 @@ def test_gp_predict_from_plain_samples(rng, key):
 
 
 def test_blocked_triangular_inverse_matches_dense():
-    """_tri_inv_lower (MXU-friendly blocked L^-1, the gradient hot path)
+    """_tri_inv_lower (matmul-friendly blocked L^-1, the gradient hot path)
     must match the dense inverse on the level-based path (power-of-two
     block counts), the recursive fallback (odd n), and under vmap."""
     from bayesianinference_tpu.ops.gp_kernels import _inv_from_chol, _tri_inv_lower
@@ -333,21 +322,6 @@ def test_gp_integer_grid_prediction(key):
         np.asarray(mix_int.mean()), np.asarray(mix_pts.mean()), rtol=1e-12
     )
     assert np.asarray(mix_int.mean()).shape == (16,)
-
-
-def test_cholesky_pallas_interpret(rng):
-    """The fused Pallas blocked SPD Cholesky (SURVEY §7.4) against the
-    dense factor, in interpreter mode (the test suite runs on CPU; the
-    kernel also dispatches on the real chip — see PERFORMANCE.md)."""
-    from bayesianinference_tpu.ops.gp_kernels import cholesky_pallas
-
-    for n, b in ((128, 128), (512, 256)):
-        a = rng.standard_normal((n, n)).astype(np.float32)
-        k = (a @ a.T + n * np.eye(n)).astype(np.float32)
-        l = np.asarray(cholesky_pallas(jnp.asarray(k), block=b, interpret=True))
-        ld = np.linalg.cholesky(k.astype(np.float64))
-        np.testing.assert_allclose(l, ld, atol=5e-4 * np.abs(ld).max())
-        assert np.allclose(np.triu(l, 1), 0.0)
 
 
 @pytest.mark.slow

@@ -169,7 +169,7 @@ def test_hmc_raw_density_requires_starts(key):
 def test_box_bijection_f32_boundary_stays_finite():
     """Regression: in f32 the old interior clip (1 - 1e-9) rounded back
     to 1.0, mapping boundary x to z = +-inf and log_jacobian to -inf —
-    a chain started at a bound was permanently stuck on TPU."""
+    a chain started at a bound was permanently stuck in f32."""
     lo = jnp.zeros(3, jnp.float32)
     hi = jnp.ones(3, jnp.float32)
     bij = box_bijection(lo, hi)

@@ -61,7 +61,7 @@ def test_laplace_log_evidence_nonposdef():
 @pytest.mark.slow
 def test_laplace_iris_logistic(key):
     """BASELINE config: logistic regression on Fisher Iris."""
-    from sklearn.datasets import load_iris
+    from bayesianinference_tpu.data import load_iris
 
     iris = load_iris()
     x = jnp.asarray((iris.data - iris.data.mean(0)) / iris.data.std(0))
@@ -225,7 +225,7 @@ def test_fit_precision_at_max(rng):
 def test_laplace_generative_model_front_end(key):
     """The ConditionalProduct front-end (LA:453-518) must reproduce the
     plain-callable Iris logistic fit exactly."""
-    from sklearn.datasets import load_iris
+    from bayesianinference_tpu.data import load_iris
 
     from bayesianinference_tpu.dists.combinators import ConditionalProduct
     from bayesianinference_tpu.models import generative_model_problem
@@ -352,7 +352,7 @@ def test_laplace_softmax_matches_logistic_and_fits_multiclass(key):
     3-class fit on Iris must converge with a positive-definite Hessian
     and mode-classification accuracy comparable to sklearn's.
     """
-    from sklearn.datasets import load_iris
+    from bayesianinference_tpu.data import load_iris
 
     iris = load_iris()
     x = jnp.asarray((iris.data - iris.data.mean(0)) / iris.data.std(0))

@@ -234,7 +234,7 @@ def test_evidence_sampling_mixture_posterior(key):
 def test_empirical_posterior_f32_zero_weights(key):
     """Zero weights in the per-run matrix must map to the finite log-zero
     sentinel, not -inf: an additive 1e-300 clamp underflows to 0 in f32
-    (the CLAUDE.md sentinel rule; VERDICT r2 weak #2)."""
+    (the CLAUDE.md sentinel rule)."""
     import dataclasses
 
     from bayesianinference_tpu.core.numerics import is_log_zero
@@ -300,7 +300,7 @@ def test_auto_chmc_above_crossover_needs_gradient_probe():
     """Above the measured d=64 crossover "auto" picks constrained HMC
     ONLY when the caller's gradient probe passes; gradient-free callers
     (no probe) and failing probes stay on slice — the latter with a
-    warning (round-5 dimension sweep, PERFORMANCE.md)."""
+    warning."""
     from bayesianinference_tpu.engines.nested_sampling import (
         resolve_monte_carlo_method,
     )
@@ -422,7 +422,7 @@ def test_ns_auto_picks_chmc_above_crossover_logz_oracle(key):
     "auto" resolves to constrained HMC (the likelihood gradient probe
     passes) with the dimension-scaled step 0.8/sqrt(72), and the full
     loop still recovers the analytic evidence — the round-5 policy
-    boundary oracle (PERFORMANCE.md "NS above d=32")."""
+    boundary oracle."""
     from bayesianinference_tpu.engines.nested_sampling import (
         resolve_monte_carlo_method,
     )
@@ -474,8 +474,7 @@ def test_ns_chmc_method_logz(key):
 @pytest.mark.slow
 def test_ns_d32_default_path_logz_oracle(key):
     """d=32 through the DEFAULT path (auto -> slice above the crossover):
-    the logZ oracle must pass without the user selecting a kernel
-    (round-2 VERDICT item 2)."""
+    the logZ oracle must pass without the user selecting a kernel."""
     a = 5.0
     d32 = 32
     problem = define_inference_problem(
@@ -554,8 +553,8 @@ def test_logz_error_bars_calibrated(key):
 
 
 def test_eval_counter_monotone_past_int32():
-    """The (hi, lo) eval counter must not wrap at 2^31 (TPU has no int64;
-    a flat int32 counter wraps in ~16 s at measured throughputs)."""
+    """The (hi, lo) eval counter must not wrap at 2^31 (the device path
+    runs without x64, so counters are int32; a flat one wraps in ~16 s at measured throughputs)."""
     from bayesianinference_tpu.engines.nested_sampling import (
         _accumulate_evals,
         evals_to_int,

@@ -307,7 +307,7 @@ def test_multi_axis_nested_sampling(key):
     public call: independent runs, pool sharded within each run, data
     axis completed by one psum per density eval) must agree with the
     plain single-device run on the same problem within combined error
-    bars (round-2 VERDICT item 3)."""
+    bars."""
     from bayesianinference_tpu.engines.nested_sampling import nested_sampling
     from bayesianinference_tpu.parallel import (
         make_multi_axis_mesh,

@@ -1,14 +1,11 @@
 """Oracle tests for core.precise — software-rounded f32 transcendentals.
 
-The module exists because TPU's native f32 ``log``/``exp``/``gammaln``
-are approximate (~2.4e3 ulps for log, measured; see the module
-docstring), which dominated the on-chip PRECISION.json ``tpu_f32`` logZ
-errors.  These tests pin the SOFTWARE CORES (``_*_precise_f32``)
-against f64 numpy/scipy oracles on CPU f32 — the cores are pure
-dtype-generic jaxprs, so CPU runs the identical compiled graph the
-chip runs — plus the edge-case semantics and the custom-JVP
+These tests pin the SOFTWARE CORES (``_*_precise_f32``) against f64
+numpy/scipy oracles on CPU f32 — the cores are pure dtype-generic
+jaxprs built from exactly-rounded f32 arithmetic, so any backend runs
+the same math — plus the edge-case semantics and the custom-JVP
 derivatives AD relies on.  The public wrappers dispatch per
-dtype/backend/mode (module docstring of ``core.precise``); that
+dtype/mode (module docstring of ``core.precise``); that
 dispatch is pinned separately in :class:`TestModeDispatch`.
 Reference accuracy machinery this feeds: GaussianProcess.wl:161-199,
 LinearRegression.wl:289-366.
@@ -100,10 +97,8 @@ class TestLog1pPrecise:
 
 class TestExpPrecise:
     def test_ulp_accuracy_vs_f64(self):
-        # round-5 core: degree-8 Taylor + scale-ordered assembly,
-        # 0.92 ulp max / 0.32 rms measured over 200k samples (the
-        # round-4 degree-6 core was 2.7 ulp max — and its ~2-ulp class
-        # was what held the GP PRECISION config at ~4e-6 on chip)
+        # degree-8 Taylor + scale-ordered assembly: 0.92 ulp max /
+        # 0.32 rms over 200k samples (a degree-6 core is 2.7 ulp max)
         rng = np.random.default_rng(2)
         x = rng.uniform(-80.0, 80.0, 4096).astype(np.float32)
         got = jax.jit(exp_precise)(jnp.asarray(x))
@@ -139,9 +134,8 @@ class TestExpPrecise:
 
 class TestExpNegPrecise:
     """The stationary-kernel exp specialization (argument <= 0): same
-    accuracy class as the general core, but fusion-transparent on TPU
-    (exponent-field bitcast instead of ldexp + native fallback — the
-    general core cost +46 ms on the n=16k GP gradient program)."""
+    accuracy class as the general core, but one fusible elementwise
+    chain (exponent-field bitcast instead of ldexp + native fallback)."""
 
     def test_ulp_accuracy_nonpositive(self):
         from bayesianinference_tpu.core.precise import _exp_neg_precise_f32
@@ -194,7 +188,7 @@ class TestGammalnPrecise:
         ref = sps.gammaln(x.astype(np.float64))
         # mixed tolerance: ~a few ulp of the RESULT scale where gammaln
         # is large, with an absolute floor near the zeros at x = 1, 2
-        # (docstring bound: ~5e-5 max absolute; native TPU is ~3.3e-3)
+        # (docstring bound: ~5e-5 max absolute)
         tol = 2e-6 * np.maximum(np.abs(ref), 8.0)
         assert np.all(np.abs(got - ref) <= tol)
 
@@ -251,9 +245,7 @@ class TestModeDispatch:
             )
 
     def test_auto_is_native_on_cpu_f32(self, mode):
-        # the suite runs on CPU (conftest), whose native f32 log is
-        # ~0.5 ulp: "auto" must leave it alone (round-4 ADVICE — the
-        # software core measurably REGRESSED CPU f32 GP accuracy)
+        # "auto" traces the native op on every backend
         mode("auto")
         assert jax.default_backend() == "cpu"
         x = jnp.asarray([0.37, 1.0, 42.0], jnp.float32)

@@ -191,8 +191,7 @@ def test_retry_loop_tests_per_block_acceptance(key):
 
 
 def test_small_cholesky_d32_matches_dense(rng):
-    """The unrolled Crout cutoff covers d=32 (XLA's batched tiny-matrix
-    cholesky at that shape is ~70x slower on TPU)."""
+    """The unrolled Crout cutoff covers d=32."""
     from bayesianinference_tpu.ops.metropolis import _cholesky, small_cholesky
 
     a = rng.normal(size=(5, 32, 32))

@@ -191,7 +191,7 @@ def test_smc_serving_cache(key):
 def test_find_delta_progresses_in_f32():
     """Regression: the degenerate-population floor remaining*2^-50
     underflowed against f32 eps, so beta + delta == beta and the ladder
-    silently burned all max_stages stages on TPU."""
+    silently burned all max_stages stages in f32."""
     logl = jnp.asarray([-1e20] * 199 + [0.0], jnp.float32)
     beta = jnp.asarray(0.5, jnp.float32)
     delta, full = _find_delta(logl, beta, SMCConfig())
